@@ -20,16 +20,21 @@ from .utils.logging import SimLogger
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
-        prog="kmldpc_tpu", description="TPU-native kmldpc link-level simulator"
+        prog="kmldpc_tpu", description="kmldpc link-level simulator (JAX)"
     )
     parser.add_argument("config", nargs="?", default="config.toml")
     parser.add_argument("--log-dir", default="logs")
     parser.add_argument("--no-log-file", action="store_true")
     parser.add_argument("--batch", type=int, default=None, help="override [tpu].batch")
     parser.add_argument("--seed", type=int, default=None, help="override [tpu].seed")
+    parser.add_argument("--json", default=None,
+                        help="also write the per-SNR results to this JSON file")
     args = parser.parse_args(argv)
 
     t0 = time.monotonic()
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from .parallel.distributed import is_primary, maybe_initialize
 
     multiproc = maybe_initialize()
@@ -71,8 +76,13 @@ def main(argv: list[str] | None = None) -> int:
         os.makedirs("records", exist_ok=True)
 
     sim = Simulator(cfg, logger)
-    sim.simulate()
+    results = sim.simulate()
     logger.info("Simulation done")
+    if args.json and primary:
+        import json
+
+        with open(args.json, "w") as f:
+            json.dump([r.as_row() for r in results], f, indent=1)
 
     total_ms = int((time.monotonic() - t0) * 1000)
     minutes, rem = divmod(total_ms, 60_000)

@@ -1,4 +1,4 @@
-"""LDPC code compilation: parity-check file -> static TPU-friendly tables.
+"""LDPC code compilation: parity-check file -> static array tables.
 
 The reference builds, per process, a pointer-linked Tanner graph plus a dense
 systematized encoder matrix (``binaryldpccodec.cc:62-141,346-492``).  Here the
@@ -6,7 +6,7 @@ whole thing is compiled *offline* (NumPy on host, cached to disk) into static
 padded index arrays that the jitted/batched decoder consumes:
 
 * ``parity_gen`` — dense GF(2) generator for the parity bits; the runtime
-  encoder is one int8 matmul on the MXU.
+  encoder is one matmul over the batch.
 * column-sorted edge list + padded per-column / per-row gather tables with
   masks — the flooding BP decoder's entire addressing scheme; no pointer
   chasing, no scatters (everything is gathers + reductions).

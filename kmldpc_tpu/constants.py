@@ -2,7 +2,7 @@
 
 Mirrors the constants of the reference simulator
 (``/root/reference/kmldpc/lib/lab/include/utility.h:10-20``) so that the
-TPU-native pipeline clips probabilities / LLRs at the same points and the
+batched pipeline clips probabilities / LLRs at the same points and the
 resulting BER/FER statistics are comparable.
 """
 

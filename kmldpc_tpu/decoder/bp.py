@@ -1,8 +1,8 @@
 """Flooding sum-product LDPC decoder, batched over codewords.
 
 Behavioral parity with ``BinaryLDPCCodec::Decoder`` (binaryldpccodec.cc:
-164-278) and the 5G override (binary5gldpccodec.cc:112-232), re-derived for
-TPU:
+164-278) and the 5G override (binary5gldpccodec.cc:112-232), re-derived as
+a batched array program:
 
 * The reference iterates probability-domain 2-state trellis sweeps per
   variable/check node with per-step normalization and a final clip of every
@@ -70,10 +70,9 @@ class DecoderTables:
     """Graph tables for one code — a pytree whose arrays are passed to the
     jitted programs as *arguments*, never closed over.
 
-    Embedding them as trace-time constants inflates the serialized MLIR by
-    megabytes (PEG8064's tables alone are ~350k integers) and was observed
-    to SIGSEGV the TPU AOT compile helper on the 5.4 MB program it produced;
-    as runtime parameters the program stays small and one compilation serves
+    Embedding them as trace-time constants would inflate the serialized
+    program by megabytes (PEG8064's tables alone are ~350k integers); as
+    runtime parameters the program stays small and one compilation serves
     every code with the same shapes.
     """
 

@@ -1,10 +1,10 @@
-"""Edge-major flooding BP: the TPU-optimized layout of decoder/bp.py.
+"""Edge-major flooding BP: the production layout of decoder/bp.py.
 
 Same algorithm and semantics as ``flooding_decode`` (LLR-domain tanh-rule
 flooding with the reference's clip/freeze behavior — see bp.py), but every
 message array is stored **edge-major** with the Monte-Carlo batch on the
-minor (lane) dimension, so all graph addressing is gathers of *rows*
-(sublane-major) — vectorized row copies, not per-lane gathers.
+minor (contiguous) dimension, so all graph addressing is gathers of whole
+*rows* of B values — contiguous row copies, not per-element gathers.
 
 Messages live in ONE array: c2v in **row(-slot) layout**, the layout the
 check-node update naturally produces.  v2c never exists as a stored array —
@@ -17,9 +17,8 @@ iteration that leaves exactly two gathers:
      one gather serves both the syndrome check (``post_edge <= 0``) and the
      on-the-fly ``v2c = post_edge - c2v``.
 
-(The previous layout stored c2v column-major and paid a third edge-sized
-permute to materialize v2c in row order — measured 418 us/iteration at
-B=1024 on v5e vs 242 us for this scheme.)  Converged codewords freeze
+(A column-major c2v would pay a third edge-sized permute to materialize
+v2c in row order.)  Converged codewords freeze
 their *outputs* (hard decisions, iteration counts, soft syndromes); the
 message array itself keeps updating — all messages are clipped finite, so
 the frozen outputs are unaffected and the per-iteration freeze copy of the
@@ -52,15 +51,14 @@ def flooding_decode_em(
 
     ``msg_dtype`` selects the storage dtype of the c2v/v2c message arrays
     (node arithmetic stays f32).  float32 is the reference-parity path;
-    bfloat16 halves message bandwidth (~1.25x faster per iteration on v5e)
-    at statistically — not bitwise — equivalent BER/FER (see PARITY.md).
+    bfloat16 halves message bandwidth at statistically — not bitwise —
+    equivalent BER/FER (see PARITY.md).
 
     ``cn_rule`` selects the check-node update: "sumprod" (reference-parity
     Gallager-phi tanh rule) or "minsum" (normalized min-sum with factor
     ``alpha``, the same per-edge arithmetic as decoder/minsum.py but on the
     flooding schedule).  Min-sum replaces the two transcendental phi passes
-    — the compute bottleneck the PEG8064 roofline analysis identifies
-    (benchmarks/RESULTS.md) — with min1/min2 vector reductions; it is an
+    with min1/min2 vector reductions; it is an
     opt-in extension (``[tpu].schedule = "flooding-minsum"``) validated
     statistically, not bitwise, against the reference.
     """

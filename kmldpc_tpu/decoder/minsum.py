@@ -5,7 +5,7 @@ industry-standard schedule for 5G-NR LDPC (SURVEY.md section 7 step 3 calls
 for it, and driver config #3 requires it).  Design:
 
 * Posterior LLRs ``L[col]`` live column-major as [num_col, B]; check-to-
-  variable messages edge-major with the batch on the lane dimension.
+  variable messages edge-major with the batch on the minor dimension.
 * One iteration sweeps the layers sequentially; within a layer all rows
   update in parallel:
       v2c   = L[col] - c2v_old
@@ -20,8 +20,8 @@ for it, and driver config #3 requires it).  Design:
   ``roll(post[jZ:(j+1)Z], -s)`` and writes back ``roll(delta, +s)`` into
   the same static slice.  No gathers, no scatters, and the 12 layers are
   unrolled at trace time so XLA fuses across them (the previous
-  ``lax.scan`` over layers with [E]-indexed gathers/scatter-adds ran 3.7x
-  SLOWER than flooding; see VERDICT round 1).  Within a layer each column
+  ``lax.scan`` over layers with [E]-indexed gathers/scatter-adds ran
+  slower than flooding).  Within a layer each column
   is touched at most once (QC property), so the slice-adds are
   conflict-free and bit-identical to a single scatter-add.
 * Generic fallback (non-QC codes, or an explicit non-Z ``layer_size``):

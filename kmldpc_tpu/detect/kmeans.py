@@ -43,8 +43,9 @@ Empty-anchor guard: if the anchor cluster has no members the reference
 produces NaN (0/0); we keep the previous ĥ instead (divergence documented).
 
 The per-iteration assignment + centroid update is one [B·Nsym, M] distance
-computation and two one-hot matmuls — MXU work, batched over the whole
-Monte-Carlo chunk.
+computation and two one-hot contractions, batched over the whole
+Monte-Carlo chunk.  This is the plain version XLA compiles; on the GPU the
+chain runs the fused kernel of detect/kmeans_pallas.py instead.
 """
 
 from __future__ import annotations
@@ -102,8 +103,11 @@ def make_blind_estimator(
             assign = jnp.argmin(d2, axis=-1)  # [B, Nsym]
             onehot = jax.nn.one_hot(assign, m, dtype=yr.dtype)  # [B, Nsym, M]
             counts = jnp.sum(onehot, axis=1)  # [B, M]
-            sum_r = jnp.einsum("bs,bsm->bm", yr, onehot)
-            sum_i = jnp.einsum("bs,bsm->bm", yi, onehot)
+            # HIGHEST: a GPU may run a default-precision f32 contraction
+            # in TF32 (~1e-3 relative), which would bias the centroids
+            hi = jax.lax.Precision.HIGHEST
+            sum_r = jnp.einsum("bs,bsm->bm", yr, onehot, precision=hi)
+            sum_i = jnp.einsum("bs,bsm->bm", yi, onehot, precision=hi)
             safe = jnp.maximum(counts, 1.0)
             cent_r = sum_r / safe
             cent_i = sum_i / safe

@@ -1,28 +1,23 @@
-"""Fused Pallas kernel: the ENTIRE blind k-means estimate in one kernel.
+"""Blind k-means on the GPU: the whole estimate in one Pallas kernel.
 
-The pure-JAX estimator (detect/kmeans.py) materializes, per iteration, the
-[B, Nsym, M] distance tensor, its argmin, and a one-hot of the assignment
-(tens of MB of HBM traffic per iteration at production batch sizes).  The
-first-generation kernel here fused one iteration's assignment+accumulation
-but still ran 20 ``pallas_call``s (one per iteration) with the re-anchoring
-in plain JAX between them — and a jax 0.9.0 closed_call lowering-cache bug
-forbade placing those calls inside a ``fori_loop`` for M > 4, forcing a
-20-way unroll whose compile time grew with M (the 64QAM variant compiled
-for minutes).
+The plain estimator (detect/kmeans.py) builds the [B, Nsym, M] distance
+tensor and its one-hot assignment on each of its iterations, and XLA does
+not fuse across the iterations of a ``fori_loop``, so every iteration
+writes and reads those tensors in device memory.  This kernel keeps the
+whole loop inside one program per received block (one row of y):
 
-This version holds the WHOLE loop inside one kernel: each grid step loads
-its [TB, Nsym] tile of received symbols into VMEM once and runs
+    init (max-|y| anchor)  ->  loop (at most ``iters`` times):
+        walk the row in power-of-two column chunks:
+            assignment: [chunk, M] squared distances to the clusters s_k·ĥ,
+                        first minimum per symbol
+            per-cluster counts and sums: masked column reductions
+        centroid + re-anchoring (constellation re-projection)  ->  ĥ
 
-    init (max-|y| anchor)  ->  fori_loop(iters):
-        assignment (M-way running min, unrolled over the constellation)
-        per-cluster counts/sums (masked row reductions)
-        centroid + re-anchoring (constellation re-projection)  ->  hhat
-
-entirely on-core, writing only the final [TB, 1] gain.  HBM traffic drops
-to one read of y per estimate (vs one per iteration), the iteration loop is
-a *rolled* ``lax.fori_loop`` inside the kernel (Mosaic compiles the body
-once — compile time no longer scales with ``iters``), and no pallas_call
-ever sits in a traced loop, so the M <= 4 gate is gone.
+and writes only the final gain.  A row is at most a few KB, so after the
+first pass the chunks come from the cache, not from device memory.  The
+route is Triton: the work is masked elementwise code and reductions with
+no matrix product.  The grid has one program per row and no order; the
+constellation is a small operand, padded to a power of two and masked.
 
 Reference semantics preserved (kmeans.cc:14-84, intended form — see
 detect/kmeans.py for the documented quirk divergences, including the
@@ -32,8 +27,10 @@ max-modulus point, nearest-cluster assignment with first-minimum ties,
 count-0-safe centroid, "max" (or verbatim de-facto "first") anchor
 re-projection, empty-anchor keeps the previous gain.
 
-The constellation is baked into the kernel as scalar constants (M <= 64
-floats) — no operand, no broadcast.
+Early exit: ĥ -> assignment -> ĥ is a deterministic map, so once an
+iteration leaves ĥ bit-unchanged every later iteration would too.  A
+program stops there, which is bit-identical to running all ``iters``
+iterations; only that row's own program waits for it.
 """
 
 from __future__ import annotations
@@ -42,228 +39,174 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# Elements of one [chunk, M] step: 32 f32 values per thread at 4 warps.
+_STEP_ELEMS = 4096
+_NUM_WARPS = 4
 
 
-def _pick_tile_sublane(
-    b: int, nsym: int, m_points: int, budget_bytes: int = 12 << 20
-) -> int:
-    """Batch-tile height: multiple of 8, sized to VMEM, dividing b if possible.
-
-    Mosaic stack-allocates roughly one [TB, Nsym] f32 temporary per
-    unrolled constellation step (measured: the M=64 kernel at TB=256,
-    S=384 wanted 23.6 MB of scoped vmem against the 16 MB limit), so the
-    budget scales with M: keep (M + 6) live tiles under ~12 MB.
-
-    When no tile divides ``b`` (e.g. b = 100 or 12), pick the in-budget
-    tile that MINIMIZES the padding ``ceil(b/t)*t - b`` (smallest tile on
-    ties) — ``estimate`` pads the batch up to the next tile multiple and
-    slices the result back, and every padded row is wasted k-means
-    compute: an earlier fallback returned the LARGEST in-budget tile,
-    padding b = 12 up to 256 rows (~20x wasted work on small odd
-    batches; the advisor's round-4 finding).  (The original version
-    returned ``min(b, 8)`` with an unpadded ``grid = (b // tb,)``, which
-    left the last ``b mod tb`` rows of the output UNWRITTEN —
-    silently-garbage gains for any batch not divisible by 8.)"""
-    per_tile = nsym * 4 * (m_points + 6)
-    for t in (256, 128, 64, 32, 16, 8):
-        if b % t == 0 and t * per_tile <= budget_bytes:
-            return t
-    best = 8
-    best_pad = None
-    for t in (8, 16, 32, 64, 128, 256):
-        if t * per_tile > budget_bytes:
-            break
-        pad = -(-b // t) * t - b
-        if best_pad is None or pad < best_pad:
-            best, best_pad = t, pad
-    return best
+def chunk_layout(nsym: int, m_points: int) -> tuple[int, int]:
+    """``(chunk, m_pad)``: the power-of-two column chunk a program walks its
+    row in, and the constellation size padded to a power of two."""
+    m_pad = pl.next_power_of_2(m_points)
+    chunk = max(1, min(pl.next_power_of_2(nsym), _STEP_ELEMS // m_pad))
+    return chunk, m_pad
 
 
-def _kmeans_kernel(yr_ref, yi_ref, hr_ref, hi_ref, *,
-                   sr: tuple, si: tuple, iters: int, anchor: str,
-                   early_exit: bool = True):
-    m_points = len(sr)
-    s0_r, s0_i = sr[0], si[0]
-    s0_norm = s0_r * s0_r + s0_i * s0_i
-    # init anchor: max-modulus constellation point for "max" mode (= s_0 on
-    # corner-first tables), verbatim s_0 for "first" — see detect/kmeans.py
-    # docstring on the reference's unconditional /s_0 scale bug
-    mstar = max(range(m_points), key=lambda j: sr[j] * sr[j] + si[j] * si[j])
-    init_idx = 0 if anchor == "first" else mstar
-    sI_r, sI_i = sr[init_idx], si[init_idx]
-    sI_norm = sI_r * sI_r + sI_i * sI_i
-    yr = yr_ref[:]  # [TB, S]
-    yi = yi_ref[:]
-    tb, s = yr.shape
+def _kmeans_kernel(yr_ref, yi_ref, pr_ref, pi_ref, hr_ref, hi_ref, *,
+                   nsym: int, chunk: int, m_points: int, iters: int,
+                   anchor: str, init_pt: tuple, early_exit: bool):
+    m_pad = pr_ref.shape[0]
+    pr = pr_ref[...]  # [m_pad], zero past m_points
+    pi = pi_ref[...]
+    midx = jnp.arange(m_pad)
+    mvalid = midx < m_points
+    n_chunks = pl.cdiv(nsym, chunk)
 
-    # --- init: point with max |y| (first index on ties, like argmax) ---
-    mag2 = yr * yr + yi * yi
-    best0 = jnp.max(mag2, axis=1, keepdims=True)
-    col = jax.lax.broadcasted_iota(jnp.int32, (tb, s), 1)
-    pick = jnp.min(jnp.where(mag2 == best0, col, s), axis=1, keepdims=True)
-    sel = col == pick
-    ymax_r = jnp.sum(jnp.where(sel, yr, 0.0), axis=1)  # [TB]
-    ymax_i = jnp.sum(jnp.where(sel, yi, 0.0), axis=1)
-    h_r0 = (ymax_r * sI_r + ymax_i * sI_i) / sI_norm
-    h_i0 = (ymax_i * sI_r - ymax_r * sI_i) / sI_norm
+    def load(c):
+        col = c * chunk + jnp.arange(chunk)
+        ok = col < nsym
+        yr = plgpu.load(yr_ref.at[col], mask=ok, other=0.0)
+        yi = plgpu.load(yi_ref.at[col], mask=ok, other=0.0)
+        return col, ok, yr, yi
 
-    def body(_, h):
-        h_r, h_i = h  # [TB]
-        # assignment: running min over the unrolled constellation; strict <
-        # keeps the first minimum (jnp.argmin / std::min_element ties)
-        best = jnp.full((tb, s), jnp.inf, jnp.float32)
-        bestm = jnp.zeros((tb, s), jnp.int32)
-        for m in range(m_points):
-            crm = h_r * sr[m] - h_i * si[m]  # [TB]
-            cim = h_r * si[m] + h_i * sr[m]
-            dre = yr - crm[:, None]
-            dim = yi - cim[:, None]
-            d = dre * dre + dim * dim
-            take = d < best
-            best = jnp.where(take, d, best)
-            bestm = jnp.where(take, m, bestm)
-        # per-cluster statistics: masked row reductions -> [TB, M]
-        cnts, sums_r, sums_i = [], [], []
-        for m in range(m_points):
-            selm = bestm == m
-            cnts.append(jnp.sum(selm.astype(jnp.float32), axis=1))
-            sums_r.append(jnp.sum(jnp.where(selm, yr, 0.0), axis=1))
-            sums_i.append(jnp.sum(jnp.where(selm, yi, 0.0), axis=1))
-        counts = jnp.stack(cnts, axis=1)  # [TB, M]
-        safe = jnp.maximum(counts, 1.0)
-        cent_r = jnp.stack(sums_r, axis=1) / safe
-        cent_i = jnp.stack(sums_i, axis=1) / safe
-        if anchor == "first":
-            a_r, a_i, a_cnt = cent_r[:, 0], cent_i[:, 0], counts[:, 0]
-            # de-facto reference: cluster 0 / s_0 (kmeans.cc:65-73)
-            sk_r = jnp.full((tb,), s0_r, jnp.float32)
-            sk_i = jnp.full((tb,), s0_i, jnp.float32)
-        else:
-            cmag = jnp.where(counts > 0, cent_r * cent_r + cent_i * cent_i, -1.0)
-            cbest = jnp.max(cmag, axis=1, keepdims=True)
-            mcol = jax.lax.broadcasted_iota(jnp.int32, (tb, m_points), 1)
-            mpick = jnp.min(
-                jnp.where(cmag == cbest, mcol, m_points), axis=1, keepdims=True
+    # --- init: the symbol with max |y| (first index on ties, like argmax),
+    # anchored to the init constellation point ---
+    def init_step(c, st):
+        best, by_r, by_i = st
+        col, ok, yr, yi = load(c)
+        mag = jnp.where(ok, yr * yr + yi * yi, -1.0)
+        cmax = jnp.max(mag)
+        sel = col == jnp.min(jnp.where(mag == cmax, col, nsym))
+        take = cmax > best  # strict: an earlier chunk keeps its tie
+        return (
+            jnp.where(take, cmax, best),
+            jnp.where(take, jnp.sum(jnp.where(sel, yr, 0.0)), by_r),
+            jnp.where(take, jnp.sum(jnp.where(sel, yi, 0.0)), by_i),
+        )
+
+    f0 = jnp.float32(0.0)
+    _, ymax_r, ymax_i = jax.lax.fori_loop(
+        0, n_chunks, init_step, (jnp.float32(-1.0), f0, f0)
+    )
+    s_r, s_i, s_norm = init_pt
+    h_r0 = (ymax_r * s_r + ymax_i * s_i) / s_norm
+    h_i0 = (ymax_i * s_r - ymax_r * s_i) / s_norm
+
+    def update(h_r, h_i):
+        cr = h_r * pr - h_i * pi  # clusters s_k·ĥ: [m_pad]
+        ci = h_r * pi + h_i * pr
+
+        def stats(c, acc):
+            cnt, sum_r, sum_i = acc
+            _, ok, yr, yi = load(c)
+            dre = yr[:, None] - cr[None, :]
+            dim = yi[:, None] - ci[None, :]
+            d = jnp.where(mvalid[None, :], dre * dre + dim * dim, jnp.inf)
+            dmin = jnp.min(d, axis=1, keepdims=True)
+            # first minimum (jnp.argmin / std::min_element ties)
+            k = jnp.min(jnp.where(d == dmin, midx[None, :], m_pad), axis=1,
+                        keepdims=True)
+            hit = (midx[None, :] == k) & ok[:, None]  # [chunk, m_pad]
+            return (
+                cnt + jnp.sum(hit.astype(jnp.float32), axis=0),
+                sum_r + jnp.sum(jnp.where(hit, yr[:, None], 0.0), axis=0),
+                sum_i + jnp.sum(jnp.where(hit, yi[:, None], 0.0), axis=0),
             )
-            msel = mcol == mpick
-            a_r = jnp.sum(jnp.where(msel, cent_r, 0.0), axis=1)
-            a_i = jnp.sum(jnp.where(msel, cent_i, 0.0), axis=1)
-            a_cnt = jnp.sum(jnp.where(msel, counts, 0.0), axis=1)
-            # intended semantics: divide the anchored centroid by its OWN
-            # constellation point (see detect/kmeans.py).  Select via
-            # scalar compares against the picked index — pallas kernels
-            # cannot capture constant arrays, and msel[:, m] column
-            # extracts are lane-strided in Mosaic (measured: they nearly
-            # doubled the kernel's runtime)
-            mp = mpick[:, 0]  # [TB] picked cluster index
-            sk_r = jnp.zeros((tb,), jnp.float32)
-            sk_i = jnp.zeros((tb,), jnp.float32)
-            for m in range(m_points):
-                sel_m = mp == m
-                sk_r = jnp.where(sel_m, sr[m], sk_r)
-                sk_i = jnp.where(sel_m, si[m], sk_i)
-        # re-projection hhat <- anchor centroid / s_anchor; empty anchor
-        # keeps the previous gain (documented divergence)
+
+        zeros = jnp.zeros((m_pad,), jnp.float32)
+        cnt, sum_r, sum_i = jax.lax.fori_loop(
+            0, n_chunks, stats, (zeros, zeros, zeros)
+        )
+        safe = jnp.maximum(cnt, 1.0)
+        cent_r = sum_r / safe
+        cent_i = sum_i / safe
+        if anchor == "first":
+            # de-facto reference: cluster 0 / s_0 (kmeans.cc:65-73)
+            pick = midx == 0
+        else:
+            cmag = jnp.where(cnt > 0, cent_r * cent_r + cent_i * cent_i, -1.0)
+            pick = midx == jnp.min(jnp.where(cmag == jnp.max(cmag), midx, m_pad))
+        a_r = jnp.sum(jnp.where(pick, cent_r, 0.0))
+        a_i = jnp.sum(jnp.where(pick, cent_i, 0.0))
+        a_cnt = jnp.sum(jnp.where(pick, cnt, 0.0))
+        # ĥ <- anchor centroid / its own constellation point
+        sk_r = jnp.sum(jnp.where(pick, pr, 0.0))
+        sk_i = jnp.sum(jnp.where(pick, pi, 0.0))
         sk_norm = sk_r * sk_r + sk_i * sk_i
         new_r = (a_r * sk_r + a_i * sk_i) / sk_norm
         new_i = (a_i * sk_r - a_r * sk_i) / sk_norm
-        keep = a_cnt > 0
-        return (
-            jnp.where(keep, new_r, h_r),
-            jnp.where(keep, new_i, h_i),
-            bestm,
-        )
+        keep = a_cnt > 0  # empty anchor keeps the previous gain
+        return jnp.where(keep, new_r, h_r), jnp.where(keep, new_i, h_i)
 
     if early_exit:
-        # Early exit on stable assignments — BIT-identical to running all
-        # ``iters`` iterations: the update is a deterministic function of
-        # the assignment (the empty-anchor keep path returns the carried
-        # gain, which the stability hypothesis already fixes), so once an
-        # iteration's assignment equals the previous iteration's, every
-        # subsequent iteration reproduces exactly the same gain and
-        # assignment.  k-means on a handful of clusters typically
-        # stabilizes in ~5 of the reference's fixed 20 iterations, so the
-        # tile stops paying for the dead tail (exactness pinned by test;
-        # per-tile: the whole tile must stabilize).
         def cond(st):
-            i, _, _, _, stable = st
-            return jnp.logical_and(i < iters, jnp.logical_not(stable))
+            i, _, _, fixed = st
+            return jnp.logical_and(i < iters, fixed == 0)
 
-        def wbody(st):
-            i, h_r, h_i, prev, _ = st
-            new_r, new_i, bestm = body(None, (h_r, h_i))
-            return i + 1, new_r, new_i, bestm, jnp.all(bestm == prev)
+        def body(st):
+            i, h_r, h_i, _ = st
+            n_r, n_i = update(h_r, h_i)
+            same = jnp.logical_and(n_r == h_r, n_i == h_i)
+            return i + 1, n_r, n_i, same.astype(jnp.int32)
 
-        _, h_r, h_i, _, _ = jax.lax.while_loop(
-            cond, wbody,
-            (jnp.int32(0), h_r0, h_i0, jnp.full((tb, s), -1, jnp.int32),
-             jnp.bool_(False)),
+        _, h_r, h_i, _ = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), h_r0, h_i0, jnp.int32(0))
         )
     else:
-        def fbody(_, h):
-            h_r, h_i = h
-            new_r, new_i, _ = body(None, (h_r, h_i))
-            return new_r, new_i
-
-        h_r, h_i = jax.lax.fori_loop(0, iters, fbody, (h_r0, h_i0))
-    hr_ref[:] = h_r[:, None]
-    hi_ref[:] = h_i[:, None]
+        h_r, h_i = jax.lax.fori_loop(
+            0, iters, lambda _, h: update(*h), (h_r0, h_i0)
+        )
+    hr_ref[0] = h_r
+    hi_ref[0] = h_i
 
 
 def make_blind_estimator_pallas(tables, iters: int = 20, anchor: str = "max",
-                                early_exit: bool = False):
-    """Drop-in for detect.kmeans.make_blind_estimator, Pallas-accelerated.
+                                *, early_exit: bool = True,
+                                interpret: bool = False):
+    """Drop-in for detect.kmeans.make_blind_estimator, as one GPU kernel.
 
-    ``early_exit`` stops a tile's iteration loop once its assignments
-    stabilize — BIT-identical to running all ``iters`` iterations (see
-    the kernel comment, exactness pinned by test) but measured a NET LOSS
-    on v5e (round 5: QPSK 1,794 -> 3,460 µs/call, 16QAM 1,173 -> 1,390,
-    64QAM 4,113 -> 5,487 at B=1024, 15 dB-like inputs): Mosaic pipelines
-    the fixed-trip fori_loop better than the while_loop, the [TB, S]
-    prev-assignment carry adds per-iteration compare/copy work, and one
-    unstable row (low |h| draws exist in every 1024-row batch) keeps its
-    whole tile iterating.  Default OFF; kept for future hardware
-    re-evaluation (benchmarks/RESULTS.md negative-results section).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests on
+    a host without a GPU); the chain never sets it.
     """
     if anchor not in ("max", "first"):
         raise ValueError(f"anchor must be 'max' or 'first', got {anchor!r}")
-    sr = tuple(float(v) for v in tables.points_re)
-    si = tuple(float(v) for v in tables.points_im)
+    pts_r = np.asarray(tables.points_re, np.float32)
+    pts_i = np.asarray(tables.points_im, np.float32)
+    m_points = pts_r.shape[0]
+    # init anchor as detect/kmeans.py computes it, in f32
+    mstar = int(np.argmax(pts_r * pts_r + pts_i * pts_i))
+    j = 0 if anchor == "first" else mstar
+    init_pt = (float(pts_r[j]), float(pts_i[j]),
+               float(pts_r[j] * pts_r[j] + pts_i[j] * pts_i[j]))
 
     def estimate(yr: jnp.ndarray, yi: jnp.ndarray):
         b, nsym = yr.shape
-        # +1 live tile for the early-exit prev-assignment carry
-        tb = _pick_tile_sublane(b, nsym, len(sr) + (1 if early_exit else 0))
-        # Pad the batch up to a tile multiple: the grid must cover every
-        # output row.  Zero rows are benign through the whole kernel (the
-        # anchor lands on cluster 0 with h = 0, no division by zero) and
-        # are sliced off below.
-        bp = -(-b // tb) * tb
-        yr32 = yr.astype(jnp.float32)
-        yi32 = yi.astype(jnp.float32)
-        if bp != b:
-            pad = ((0, bp - b), (0, 0))
-            yr32 = jnp.pad(yr32, pad)
-            yi32 = jnp.pad(yi32, pad)
-        grid = (bp // tb,)
+        chunk, m_pad = chunk_layout(nsym, m_points)
+        pr = jnp.asarray(np.pad(pts_r, (0, m_pad - m_points)))
+        pi = jnp.asarray(np.pad(pts_i, (0, m_pad - m_points)))
         kern = functools.partial(
-            _kmeans_kernel, sr=sr, si=si, iters=iters, anchor=anchor,
-            early_exit=early_exit,
+            _kmeans_kernel, nsym=nsym, chunk=chunk, m_points=m_points,
+            iters=iters, anchor=anchor, init_pt=init_pt, early_exit=early_exit,
         )
-        spec_y = pl.BlockSpec((tb, nsym), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        spec_h = pl.BlockSpec((tb, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        out = jax.ShapeDtypeStruct((bp, 1), jnp.float32)
+        row = pl.BlockSpec((None, nsym), lambda i: (i, 0))
+        const = pl.BlockSpec((m_pad,), lambda i: (0,))
+        gain = pl.BlockSpec((1,), lambda i: (i,))
+        out = jax.ShapeDtypeStruct((b,), jnp.float32)
         h_r, h_i = pl.pallas_call(
             kern,
-            grid=grid,
             out_shape=(out, out),
-            in_specs=[spec_y, spec_y],
-            out_specs=(spec_h, spec_h),
-        )(yr32, yi32)
-        h_r = h_r[:b, 0]
-        h_i = h_i[:b, 0]
+            grid=(b,),
+            in_specs=[row, row, const, const],
+            out_specs=(gain, gain),
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
+            interpret=interpret,
+            name="kmeans_blind",
+        )(yr.astype(jnp.float32), yi.astype(jnp.float32), pr, pi)
         # 4 candidates hhat*e^{jk pi/2} = hhat*{1, j, -1, -j}
         # (simulator.cc:146-148)
         h4_r = jnp.stack([h_r, -h_i, -h_r, h_i], axis=1)

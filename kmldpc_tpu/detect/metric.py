@@ -173,8 +173,7 @@ def make_ambiguity_selector(
         oh = jax.nn.one_hot(best, nc, dtype=h4_r.dtype)
         hr = jnp.sum(h4_r[:, :nc] * oh, axis=1)
         hi = jnp.sum(h4_i[:, :nc] * oh, axis=1)
-        # winner's LLRs via a row gather of the folded [nc*B, n] array — a
-        # [B, nc, n] reshape would be a retiling copy on TPU
+        # winner's LLRs via a row gather of the folded [nc*B, n] array
         rows = jnp.arange(b, dtype=jnp.int32) * nc + best.astype(jnp.int32)
         llr_best = chan_llr[rows]
         if prune_complement:

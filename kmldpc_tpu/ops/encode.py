@@ -3,7 +3,7 @@
 The reference encodes one codeword at a time with XOR dot-products against
 the dense systematized matrix (``binaryldpccodec.cc:144-162``, 5G variant
 ``binary5gldpccodec.cc:86-109``).  Here the whole batch's parity bits are one
-f32 matmul on the MXU followed by mod-2: bit counts are at most ``code_dim``
+f32 matmul followed by mod-2: bit counts are at most ``code_dim``
 (< 2^24), so float accumulation is exact.
 
 Conventions (identical to the reference, in the permuted column domain):
@@ -27,9 +27,9 @@ from ..code.ldpc import LDPCCode
 
 def encoder_table(code: LDPCCode) -> jnp.ndarray:
     """The [K, chk] f32 generator slab — passed to ``encode`` as a runtime
-    argument.  Baking it into the traced program as a constant bloats the
-    serialized MLIR by megabytes (PEG2304: 1152x1152 f32) and was observed
-    to SIGSEGV the TPU AOT compile helper."""
+    argument.  Baking it into the traced program as a constant would bloat
+    the serialized program by megabytes (PEG2304: 1152x1152 f32) that every
+    compile has to carry."""
     return jnp.asarray(code.parity_gen.T.astype(np.float32))
 
 
@@ -50,6 +50,8 @@ def make_encoder(
             b = uu.shape[0]
             cc_full = jnp.zeros((b, code.num_col), dtype=jnp.int8)
             return cc_full, cc_full[:, punct:]
+        # Default precision on purpose: both operands are 0/1, which TF32
+        # holds exactly, and the products accumulate in f32.
         counts = jnp.dot(
             uu.astype(jnp.float32), gen_t, preferred_element_type=jnp.float32
         )

@@ -15,14 +15,15 @@ Demapping mirrors the two-stage reference pipeline:
    extrinsic bit probabilities P(bit=0), divide out the prior, clip.
 
 We fold the two stages into one jitted function over the whole batch; the
-bit marginalization is a [B*Nsym, M] @ [M, m] matmul on the MXU.  The output
+bit marginalization is a [B*Nsym, M] @ [M, m] contraction at HIGHEST
+precision (a GPU may otherwise run it in TF32, ~1e-3 relative).  The output
 is returned both as P(bit=0) (reference's ``bit_l_out_``) and as the LLR
 ``log(P0/P1)`` that feeds the LLR-domain BP decoder; thanks to the shared
 clipping constant the LLR is bounded by ±LLR_CLIP exactly as the reference's
 probabilities are bounded by [1e-12, 1-1e-12].
 
-Complex numbers are carried as separate (real, imag) float32 planes — TPU
-VPU/MXU native layout; complex dtypes appear only in host-side NumPy.
+Complex numbers are carried as separate (real, imag) float32 planes;
+complex dtypes appear only in host-side NumPy.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -72,6 +74,8 @@ def make_mapper(tables: ModemTables) -> Callable[[jnp.ndarray], tuple[jnp.ndarra
     def map_bits(cc_tx: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
         b, n = cc_tx.shape
         groups = cc_tx.reshape(b, n // m, m).astype(jnp.float32)
+        # Default precision on purpose: 0/1 bits times powers of two up to
+        # 2^(m-1) are exact in TF32, and the sums accumulate in f32.
         idx = jnp.dot(
             groups, tables.pack_weights, preferred_element_type=jnp.float32
         ).astype(jnp.int32)
@@ -110,8 +114,9 @@ def make_soft_demapper(
         # (modem.cc:26-27 via ProbClip on symRin).
         p = jnp.clip(p, clip_lo, clip_hi)
         # bit marginalization: [B, Nsym, M] @ [M, m]
-        p0 = jnp.einsum("bsm,mj->bsj", p, tables.bit0_mask)
-        p1 = jnp.einsum("bsm,mj->bsj", p, 1.0 - tables.bit0_mask)
+        hi = jax.lax.Precision.HIGHEST
+        p0 = jnp.einsum("bsm,mj->bsj", p, tables.bit0_mask, precision=hi)
+        p1 = jnp.einsum("bsm,mj->bsj", p, 1.0 - tables.bit0_mask, precision=hi)
         bit_p0 = p0 / (p0 + p1)
         bit_p0 = jnp.clip(bit_p0, clip_lo, clip_hi).reshape(b, nsym * m)
         # LLR from the unnormalized marginals: 1 - 1e-12 is not
@@ -175,14 +180,17 @@ def make_prior_demapper(
         pin = bit_p0_in.reshape(b, nsym, m)
         pin0 = jnp.clip(pin, clip_lo, clip_hi)
         pin1 = jnp.clip(1.0 - pin, clip_lo, clip_hi)
-        # symbol log-prior via MXU: [B, Nsym, m] @ [m, M] per bit value
+        # symbol log-prior: [B, Nsym, m] @ [m, M] per bit value
+        hi = jax.lax.Precision.HIGHEST
         log_prior = jnp.einsum(
-            "bsj,mj->bsm", jnp.log(pin0), tables.bit0_mask
-        ) + jnp.einsum("bsj,mj->bsm", jnp.log(pin1), 1.0 - tables.bit0_mask)
+            "bsj,mj->bsm", jnp.log(pin0), tables.bit0_mask, precision=hi
+        ) + jnp.einsum(
+            "bsj,mj->bsm", jnp.log(pin1), 1.0 - tables.bit0_mask, precision=hi
+        )
         post = p * jnp.exp(log_prior - jnp.max(log_prior, axis=-1, keepdims=True))
         post = post / jnp.sum(post, axis=-1, keepdims=True)
-        p0 = jnp.einsum("bsm,mj->bsj", post, tables.bit0_mask)
-        p1 = jnp.einsum("bsm,mj->bsj", post, 1.0 - tables.bit0_mask)
+        p0 = jnp.einsum("bsm,mj->bsj", post, tables.bit0_mask, precision=hi)
+        p1 = jnp.einsum("bsm,mj->bsj", post, 1.0 - tables.bit0_mask, precision=hi)
         e0 = p0 / pin0  # extrinsic: divide the prior back out
         e1 = p1 / pin1
         bit_p0_out = jnp.clip(e0 / (e0 + e1), clip_lo, clip_hi).reshape(b, nsym * m)

@@ -3,17 +3,17 @@
 The reference is a single process (SURVEY.md §2: shared-memory threading
 only).  Scaling beyond one host here follows the standard JAX recipe: one
 process per host, ``jax.distributed.initialize()`` (coordinator address
-from the environment), a mesh spanning ``jax.devices()`` (all chips of all
-hosts — ICI within a slice, DCN across), and the existing shard_map chunk
+from the environment), a mesh spanning ``jax.devices()`` (all devices of
+all hosts), and the existing shard_map chunk
 with psum'd counters.  Because counters come back replicated, every process
 applies identical stopping rules in lockstep — no extra control-plane
 communication is needed.
 
-Environment contract (standard JAX / cloud-TPU variables):
+Environment contract (standard JAX variables):
   JAX_COORDINATOR_ADDRESS (or COORDINATOR_ADDRESS)  host:port of process 0
-  JAX_NUM_PROCESSES / JAX_PROCESS_ID                optional explicit ids
-On TPU pods these are usually auto-detected and ``initialize()`` needs no
-arguments.
+  JAX_NUM_PROCESSES / JAX_PROCESS_ID                process count and rank
+With neither the address nor the process count set, the run is
+single-process.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Edge-sharded flooding BP: the message state partitioned over the mesh.
 
 SURVEY.md §2 (parallelism table): the reference is a CPU simulator with no
-tensor partitioning anywhere; the TPU-native analogue of "scaling a long
+tensor partitioning anywhere; the batched analogue of "scaling a long
 sequence" is sharding the Monte-Carlo batch (parallel/sharding.py) **and,
 for the huge PEG8064 code, sharding the BP messages over the edge
 dimension**.  This module is that second axis — model parallelism for the
@@ -11,12 +11,12 @@ decoder itself:
   contiguous slabs over a ``model`` mesh axis: device d owns
   ``c2v[d]: [drm, nr/D, B]`` — for PEG8064 at B=1024 f32 that is 99 MB of
   message state split D ways, so codes (or batches) whose message state
-  exceeds one chip's HBM decode without spilling.
+  exceeds one device's memory decode without spilling.
 * Per iteration exactly ONE collective runs: each device scatter-adds its
   local check-to-variable messages into a partial column-sum ``[nc, B]``
   and a ``psum`` over the ``model`` axis materializes the full variable-
-  node posterior on every device (33 MB for PEG8064 at B=1024 — rides ICI,
-  not HBM).  Everything else (hard decision, local syndrome slab, CN
+  node posterior on every device (33 MB for PEG8064 at B=1024, over the
+  device interconnect).  Everything else (hard decision, local syndrome slab, CN
   update with either CN rule) is device-local.
 * The iteration order, 1e-12 clip, per-codeword convergence freezing, and
   both CN rules ("sumprod" Gallager-phi / "minsum") match the single-chip
@@ -264,8 +264,8 @@ def get_mesh_2d(ndata: int, nmodel: int, devices=None) -> Mesh:
     """(data x model) 2-D mesh over the first ``ndata * nmodel`` devices.
 
     ``model`` is the minor axis so each data row's model group sits on
-    adjacent devices — the per-iteration posterior psum rides the shortest
-    ICI hops, while the (once-per-chunk) data-axis counter psum crosses
+    adjacent devices — the per-iteration posterior psum stays within a
+    group, while the (once-per-chunk) data-axis counter psum crosses
     rows.
     """
     if devices is None:
@@ -423,7 +423,7 @@ def make_model_parallel_chunk_runner(
             llr_col = jnp.concatenate(
                 [jnp.zeros((t.punct, local_batch), jnp.float32), llr_col], axis=0
             )
-        cc_hat, conv, iters, ss = decode_final(row_col, rmask, llr_col, spec.max_iter)
+        cc_hat, _, iters, _ = decode_final(row_col, rmask, llr_col, spec.max_iter)
         uu_hat = jax.lax.dynamic_slice_in_dim(cc_hat, t.info_start, t.code_dim, 0).T
         errs = jnp.sum((uu != uu_hat).astype(jnp.int32), axis=1)  # [B_local]
         errs_f = errs.astype(jnp.float32)
@@ -437,8 +437,6 @@ def make_model_parallel_chunk_runner(
             iters=jnp.mean(iters.astype(jnp.float32)),
             kmeans_diag=(),
             debug=debug,
-            # keep-alive, batch-major (see ChunkResult.raw)
-            raw=(uu_hat, cc_hat.T, conv, iters, ss[: t.num_row].T),
         )
 
     def per_device(p, row_col, rmask, keys, var):
@@ -463,7 +461,6 @@ def make_model_parallel_chunk_runner(
                     lambda a: a.reshape((n * local_batch,) + a.shape[2:]),
                     rs.debug,
                 ),
-                raw=rs.raw,
             )
         # counters are identical on every model device of a data row (the
         # decode's posterior is psum-replicated over "model"), so the
@@ -479,7 +476,6 @@ def make_model_parallel_chunk_runner(
             iters=jax.lax.pmean(res.iters, "data"),
             kmeans_diag=(),
             debug=res.debug,
-            raw=res.raw,
         )
 
     sharded = jax.shard_map(
@@ -489,7 +485,7 @@ def make_model_parallel_chunk_runner(
         out_specs=ChunkResult(
             err_bit=P(), err_blk=P(), tot_bit=P(), tot_blk=P(),
             err_bit_sq=P(), metrics=P("data"), iters=P(),
-            kmeans_diag=P(), debug=P("data"), raw=P("data"),
+            kmeans_diag=P(), debug=P("data"),
         ),
         # same zeros-meet-sharded while_loop carry issue as
         # make_sharded_chunk_runner

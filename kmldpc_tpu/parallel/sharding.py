@@ -2,19 +2,18 @@
 
 The reference's two thread pools (one thread per SNR point, an inner pool
 over block chunks sharing a mutexed counter object — simulator.cc:27-103,
-thread_pool.h) map TPU-natively onto a 1-D device mesh:
+thread_pool.h) map onto a 1-D device mesh:
 
 * the Monte-Carlo batch dimension is sharded over the ``data`` axis via
   ``shard_map`` — each device simulates ``batch / D`` codewords with its own
   counter-derived PRNG key (replacing the reference's racy shared RNG
   singletons, randnum.cc:89-93);
 * the mutexed ``threadsafe_sourcesink`` aggregation becomes one
-  ``psum`` of the int32 counter pytree over ICI (threadsafe_sourcesink.cc ->
+  ``psum`` of the int32 counter pytree (threadsafe_sourcesink.cc ->
   jax.lax.psum), so counters land replicated on every device and the host
   reads them without extra transfers;
 * multi-host runs reuse the same code: ``jax.distributed.initialize`` +
-  ``jax.devices()`` makes the mesh span hosts, with the same psum riding
-  DCN across slices.
+  ``jax.devices()`` makes the mesh span hosts, with the same psum.
 
 The chunk program itself is unchanged — ``make_chunk_runner``'s chain runs
 per shard — so single-chip and multi-chip paths cannot drift apart.
@@ -82,7 +81,6 @@ def make_sharded_chunk_runner(
             iters=jax.lax.pmean(res.iters, "data"),
             kmeans_diag=res.kmeans_diag,
             debug=res.debug,
-            raw=res.raw,
         )
 
     sharded = jax.shard_map(
@@ -92,7 +90,7 @@ def make_sharded_chunk_runner(
         out_specs=ChunkResult(
             err_bit=P(), err_blk=P(), tot_bit=P(), tot_blk=P(),
             err_bit_sq=P(), metrics=P("data"), iters=P(),
-            kmeans_diag=P("data"), debug=P("data"), raw=P("data"),
+            kmeans_diag=P("data"), debug=P("data"),
         ),
         # The decoder's while_loop initializes its carries with unvarying
         # zeros that meet data-sharded values at the first iteration; the
@@ -153,7 +151,6 @@ def make_sharded_multi_point_runner(
                 iters=jax.lax.pmean(res.iters, "data"),
                 kmeans_diag=res.kmeans_diag,
                 debug=res.debug,
-                raw=res.raw,
             )
 
         _, rs = jax.lax.scan(step, 0, (keys[:, 0], vars_))
@@ -167,7 +164,6 @@ def make_sharded_multi_point_runner(
             err_bit=P(), err_blk=P(), tot_bit=P(), tot_blk=P(),
             err_bit_sq=P(), metrics=P(None, "data"), iters=P(),
             kmeans_diag=P(None, "data"), debug=P(None, "data"),
-            raw=P(None, "data"),
         ),
         # same zeros-meet-sharded while_loop carry issue as above
         check_vma=False,

@@ -1,4 +1,4 @@
-"""Record export: the reference's optional ``.mat`` writer, TPU-native style.
+"""Record export: the reference's optional ``.mat`` writer.
 
 The reference wraps matio to dump scalars/vectors for MATLAB inspection
 (``lab::Mat``, mat.h:14-37 / mat.cc:4-197, compiled under ``USE_MATIO``),

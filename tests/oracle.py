@@ -5,7 +5,7 @@ equations of ``binaryldpccodec.cc:164-278`` (flooding sum-product with
 per-message normalization, clip of c2v into [1e-12, 1-1e-12], VN -> hard ->
 syndrome -> break -> CN order) and of the demapper chain
 (``modemlinearsystem.cc:51-90`` + ``modem.cc:23-79``), used to validate the
-TPU LLR-domain implementations.
+f32 LLR-domain implementations.
 """
 
 from __future__ import annotations
@@ -120,3 +120,21 @@ def demap_prior_oracle(
         e1 = post[bits[:, j] == 1].sum() / (1 - prior_p0[j])
         out[j] = e0 / (e0 + e1)
     return np.clip(out, SMALLEST_PROB, 1 - SMALLEST_PROB)
+
+
+def demap_llr_batch(y: np.ndarray, h: np.ndarray, var: float,
+                    points: np.ndarray, bits: np.ndarray) -> np.ndarray:
+    """:func:`demap_oracle` over a whole batch, as clipped channel LLRs.
+
+    y: [B, Nsym] complex, h: [B] complex.  Returns [B, Nsym*m] float64
+    ``log(P0/P1)`` of the uniform-prior demap, clipped to +-LLR_CLIP like
+    the reference's probabilities are clipped to [1e-12, 1-1e-12].
+    """
+    d2 = np.abs(y[:, :, None] - h[:, None, None] * points[None, None, :]) ** 2 / var
+    p = np.exp(-(d2 - d2.min(axis=-1, keepdims=True)))
+    p /= p.sum(axis=-1, keepdims=True)
+    p = np.clip(p, SMALLEST_PROB, 1 - SMALLEST_PROB)
+    bit0 = (bits == 0).astype(np.float64)  # [M, m]
+    llr = np.log(p @ bit0) - np.log(p @ (1.0 - bit0))
+    clip = np.log((1 - SMALLEST_PROB) / SMALLEST_PROB)
+    return np.clip(llr, -clip, clip).reshape(y.shape[0], -1)

@@ -102,3 +102,51 @@ def test_partition_indivisible_raises(assets):
             jnp.zeros((1, 8)), jnp.zeros((1, 8)),
             jnp.zeros((1, 3)), jnp.zeros((1, 3)), 0.1,
         )
+
+
+def test_compile_cache_env_var_wins(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and nothing is set
+    in code (JAX reads the variable itself)."""
+    from kmldpc_tpu.utils.compile_cache import enable_compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_repo_dir(monkeypatch):
+    """Without the variable the cache is <repo>/.jax_cache, which git
+    ignores — the same path in every process and every run."""
+    import pathlib
+
+    from kmldpc_tpu.utils.compile_cache import enable_compile_cache
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert enable_compile_cache() == str(repo / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == str(repo / ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("args", [[], ["--four"]])
+def test_chip_smoke_fails_without_gpu(args):
+    """Without a GPU chip_smoke.py exits non-zero and prints no ok line."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    p = subprocess.run(
+        [sys.executable, str(repo / "chip_smoke.py"), *args],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+    assert "JAX finds no GPU" in p.stderr

@@ -1,11 +1,7 @@
-"""The driver-visible bench surfaces must never rot: every row of the
-SHARED row matrix (tools/rows.py) builds a valid chunk runner, and both
-harnesses (bench.py, tools/microbench.py) import that one table.
-
-Both rounds 1 and 2 shipped a perf regression inside a config the driver
-bench did not cover; the row table is the fix.  Round 3 pinned two copies
-of the table; round 4 merged them (VERDICT r3 item 6) — this test pins the
-single definition and that both harnesses actually use it.
+"""The bench surfaces must never rot: every row of the SHARED row matrix
+(tools/rows.py) builds a valid chunk runner, and both harnesses
+(bench.py, tools/microbench.py) import that one table, so a configuration
+cannot be benchmarked by one surface and missed by the other.
 """
 
 import os
@@ -59,71 +55,10 @@ def test_harnesses_share_the_table():
     assert "ROWS = [" not in src  # the old second copy must not come back
 
 
-def test_calibration_row_and_normalization():
-    """The session-calibration program is a pinned-shape copy of the
-    known-h row, and `calibrated` corrects rates/latencies in opposite
-    directions (a slow window under-reads rates and over-reads latencies)."""
-    from tools.rows import CAL_NOMINAL_BLK_S, calibrated, calibration_row
-
-    cal = calibration_row()
-    assert cal.name == "PEG2304+QPSK/known"
-    assert cal.batch == 1024 and cal.cpl == 16
-    assert CAL_NOMINAL_BLK_S > 0
-    # session 20% slow (factor 0.8): rates divide up, latencies multiply down
-    assert calibrated(80_000.0, "blocks_per_s", 0.8) == 100_000.0
-    assert calibrated(125.0, "us_per_iter", 0.8) == 100.0
-    assert calibrated(50.0, "us_per_call", 0.0) == 50.0  # no calibration
-
-
-def test_diff_compares_calibrated_ratios(tmp_path):
-    """Injected-slowdown check (VERDICT r4 item 2 'done' criterion): a row
-    whose RAW number sits inside the historical cross-window range but
-    whose session-normalized value regressed must flag in --diff."""
-    import json
-
-    from tools.microbench import apply_calibration, diff_against
-
-    # Baseline session: calibration at nominal (factor 1.0).
-    base = {
-        "_calibration": {"factor": 1.0},
-        "chain/X": {"blocks_per_s": 100_000.0},
-    }
-    apply_calibration(base)
-    assert base["chain/X"]["calibrated"] == 100_000.0
-    # New session: the relay window is 25% FASTER (factor 1.25) but the
-    # row's raw number is unchanged — a real ~20% regression that a raw
-    # comparison calls 0%.
-    new = {
-        "_calibration": {"factor": 1.25},
-        "chain/X": {"blocks_per_s": 100_000.0},
-    }
-    apply_calibration(new)
-    bp = tmp_path / "base.json"
-    bp.write_text(json.dumps(base))
-    report = diff_against(new, str(bp))
-    (row,) = [r for r in report if r["row"] == "chain/X"]
-    assert row["metric"] == "blocks_per_s[calibrated]"
-    assert row["worse"] and row["change_pct"] < -15
-    # latency metrics flag in the other direction: same raw us, faster
-    # session -> calibrated latency regressed (higher)
-    base2 = {"_calibration": {"factor": 1.0},
-             "decoder/Y": {"us_per_iter": 200.0}}
-    new2 = {"_calibration": {"factor": 1.25},
-            "decoder/Y": {"us_per_iter": 200.0}}
-    apply_calibration(base2)
-    apply_calibration(new2)
-    bp2 = tmp_path / "base2.json"
-    bp2.write_text(json.dumps(base2))
-    report2 = diff_against(new2, str(bp2))
-    (row2,) = [r for r in report2 if r["row"] == "decoder/Y"]
-    assert row2["worse"] and row2["change_pct"] > 15
-
-
 def test_pick_n2_scales_fast_rows():
-    """Fast rows must measure a steady-state span that dominates the
-    ~30 ms fixed relay cost (VERDICT r4 item 3): ~2 ms/launch rows get
-    n2 in the hundreds, slow rows keep the floor, and one run stays
-    bounded."""
+    """Fast rows must measure a steady-state span that dominates the fixed
+    per-run cost: ~2 ms/launch rows get n2 in the hundreds, slow rows keep
+    the floor, and one run stays bounded."""
     from bench import pick_n2
 
     assert pick_n2(0.002) >= 150  # 5G minsum-class: span >= 0.3 s

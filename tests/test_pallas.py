@@ -1,38 +1,37 @@
-"""Pallas k-means kernel: interpreter-mode equivalence on CPU."""
+"""GPU k-means kernel (Triton route): interpret-mode equivalence on the CPU."""
 
 import jax
 import numpy as np
 import pytest
 
 from kmldpc_tpu.detect.kmeans import make_blind_estimator
+from kmldpc_tpu.detect.kmeans_pallas import chunk_layout, make_blind_estimator_pallas
 from kmldpc_tpu.io import parse_constellation
 from kmldpc_tpu.ops.modem import ModemTables
 
 
-@pytest.mark.parametrize(
-    "fname", ["2bits_QPSK.txt", "4bit_16QAM_Gray.txt", "6bits_64QAM_Gray.txt"]
-)
-def test_pallas_kmeans_matches_jax(assets, fname, monkeypatch):
-    """The fused kernel must agree with the pure-JAX estimator.
+def _tables(assets, fname):
+    return ModemTables.from_constellation(parse_constellation(str(assets / fname)))
 
-    On CPU the kernel runs in Pallas interpreter mode (the Mosaic TPU
-    compiler is unavailable); the on-device path is exercised by bench.py
-    and was validated to 2.4e-7 max deviation on a v5e chip.
+
+@pytest.mark.parametrize("fname,anchor", [
+    ("2bits_QPSK.txt", "max"),
+    ("4bit_16QAM_Gray.txt", "max"),
+    ("6bits_64QAM_Gray.txt", "max"),
+    ("4bit_16QAM_Gray.txt", "first"),
+])
+def test_pallas_kmeans_matches_jax(assets, fname, anchor):
+    """The fused kernel must agree with the plain estimator.
+
+    On the CPU the kernel runs in the Pallas interpreter; the compiled
+    kernel is checked against the same reference on the GPU by
+    tests/test_chip.py and chip_smoke.py.
     """
-    from jax.experimental.pallas import tpu as pltpu
-
-    import kmldpc_tpu.detect.kmeans_pallas as kp
-
-    const = parse_constellation(str(assets / fname))
-    tables = ModemTables.from_constellation(const)
-    key = jax.random.key(0)
-    yr = jax.random.normal(key, (16, 288))
+    tables = _tables(assets, fname)
+    yr = jax.random.normal(jax.random.key(0), (16, 288))
     yi = jax.random.normal(jax.random.key(1), (16, 288))
-    e_jax = make_blind_estimator(tables)
-    with pltpu.force_tpu_interpret_mode():
-        e_pal = kp.make_blind_estimator_pallas(tables)
-        h4p = e_pal(yr, yi)
-    h4j = e_jax(yr, yi)
+    h4p = make_blind_estimator_pallas(tables, 20, anchor, interpret=True)(yr, yi)
+    h4j = make_blind_estimator(tables, 20, anchor)(yr, yi)
     np.testing.assert_allclose(np.asarray(h4j[0]), np.asarray(h4p[0]), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(h4j[1]), np.asarray(h4p[1]), rtol=1e-5, atol=1e-6)
 
@@ -41,70 +40,90 @@ def test_pallas_kmeans_matches_jax(assets, fname, monkeypatch):
     "fname", ["2bits_QPSK.txt", "6bits_64QAM_Gray.txt"]
 )
 def test_pallas_kmeans_early_exit_bit_identical(assets, fname):
-    """Early exit on stable assignments must be BIT-identical to the full
-    fixed-trip loop (round 5): the update is a deterministic function of
-    the assignment, so a repeated assignment fixes the gain forever —
-    exiting early skips only no-op iterations."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    import kmldpc_tpu.detect.kmeans_pallas as kp
-
-    const = parse_constellation(str(assets / fname))
-    tables = ModemTables.from_constellation(const)
+    """Early exit at a fixed point of ĥ must be BIT-identical to the full
+    fixed-trip loop: ĥ -> assignment -> ĥ is deterministic, so a repeated
+    gain repeats forever — exiting early skips only no-op iterations."""
+    tables = _tables(assets, fname)
     yr = jax.random.normal(jax.random.key(5), (16, 288))
     yi = jax.random.normal(jax.random.key(6), (16, 288))
-    with pltpu.force_tpu_interpret_mode():
-        h_ee = kp.make_blind_estimator_pallas(tables, 20, "max",
-                                              early_exit=True)(yr, yi)
-        h_full = kp.make_blind_estimator_pallas(tables, 20, "max",
-                                                early_exit=False)(yr, yi)
+    h_ee = make_blind_estimator_pallas(tables, 20, "max", interpret=True)(yr, yi)
+    h_full = make_blind_estimator_pallas(
+        tables, 20, "max", early_exit=False, interpret=True
+    )(yr, yi)
     np.testing.assert_array_equal(np.asarray(h_ee[0]), np.asarray(h_full[0]))
     np.testing.assert_array_equal(np.asarray(h_ee[1]), np.asarray(h_full[1]))
 
 
-def test_pick_tile_minimizes_padding():
-    """The fallback tile for batches no tile divides must minimize padding.
-
-    Regression test for the round-4 advisor finding: the fallback returned
-    the LARGEST in-budget tile, padding b = 12 up to 256 rows (~20x wasted
-    k-means compute).  Now the in-budget tile with the least padding wins
-    (smallest tile on ties); exact divisors keep preferring large tiles.
-    """
-    from kmldpc_tpu.detect.kmeans_pallas import _pick_tile_sublane
-
-    # b = 12: pad 4 at t=8 (ties t=16's 4, smallest wins)
-    assert _pick_tile_sublane(12, 288, 16) == 8
-    # b = 100: pad 4 at t=8 beats 28 at t=32 / 156 at t=256
-    assert _pick_tile_sublane(100, 288, 16) == 8
-    # exact divisors still take the largest in-budget tile
-    assert _pick_tile_sublane(1024, 384, 4) == 256
-    # VMEM budget still caps the tile for the 64-point kernel
-    assert _pick_tile_sublane(1024, 384, 64) == 64
+def test_chunk_layout_and_grid():
+    """Column chunks and the padded constellation are powers of two, a
+    [chunk, M] step stays at 4096 elements, a chunk never exceeds the padded
+    row, and the grid has one program per row of any batch."""
+    assert chunk_layout(1152, 4) == (1024, 4)  # QPSK: 2 chunks, 2nd masked
+    assert chunk_layout(576, 16) == (256, 16)
+    assert chunk_layout(1344, 64) == (64, 64)  # PEG8064 + 64QAM: 21 chunks
+    assert chunk_layout(5, 4) == (8, 4)  # short row: one masked chunk
+    assert chunk_layout(288, 12) == (256, 16)  # M padded, pad points masked
+    tables = ModemTables(
+        bits_per_symbol=2,
+        points_re=np.asarray([1.0, -1.0, -1.0, 1.0], np.float32) / np.sqrt(2),
+        points_im=np.asarray([1.0, 1.0, -1.0, -1.0], np.float32) / np.sqrt(2),
+        bit0_mask=np.zeros((4, 2), np.float32),
+        pack_weights=np.asarray([2.0, 1.0], np.float32),
+    )
+    est = make_blind_estimator_pallas(tables)
+    y = jax.ShapeDtypeStruct((7, 300), np.float32)
+    jaxpr = jax.make_jaxpr(est)(y, y)
+    (call,) = [e for e in jaxpr.eqns if e.primitive.name == "pallas_call"]
+    assert call.params["grid_mapping"].grid == (7,)
+    assert call.params["backend"] == "triton"
 
 
 @pytest.mark.parametrize("b", [100, 12, 7])
 def test_pallas_kmeans_odd_batch(assets, b):
-    """Batches not divisible by any tile must still fill EVERY output row.
-
-    Regression test for the round-3 bug where ``grid = (b // tb,)`` with an
-    unpadded batch left the last ``b mod tb`` gains unwritten (silent
-    garbage for e.g. ``[tpu].batch = 100``).  The kernel now pads the batch
-    to a tile multiple and slices back; every row must agree with the
-    pure-JAX estimator.  Also validated on a real v5e chip (round 4): the
-    Mosaic-compiled kernel matched the JAX estimator exactly (max dev 0.0)
-    at b = 100 and 12 for QPSK/16QAM/64QAM.
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
-    import kmldpc_tpu.detect.kmeans_pallas as kp
-
-    const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
-    tables = ModemTables.from_constellation(const)
+    """Every row of a batch of any size gets its own program and its own
+    gain; every row must agree with the plain estimator."""
+    tables = _tables(assets, "4bit_16QAM_Gray.txt")
     yr = jax.random.normal(jax.random.key(2), (b, 288))
     yi = jax.random.normal(jax.random.key(3), (b, 288))
-    e_jax = make_blind_estimator(tables)
-    with pltpu.force_tpu_interpret_mode():
-        h4p = kp.make_blind_estimator_pallas(tables)(yr, yi)
-    h4j = e_jax(yr, yi)
+    h4p = make_blind_estimator_pallas(tables, interpret=True)(yr, yi)
+    h4j = make_blind_estimator(tables)(yr, yi)
     np.testing.assert_allclose(np.asarray(h4j[0]), np.asarray(h4p[0]), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(h4j[1]), np.asarray(h4p[1]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl,platform,expect", [
+    ("auto", "gpu", "pallas"),
+    ("auto", "cpu", "jax"),
+    ("jax", "gpu", "jax"),
+    ("pallas", "gpu", "pallas"),
+    ("auto", "tpu", None),  # no implementation named for the platform
+    ("pallas", "cpu", None),  # the kernel never runs off the GPU
+    ("mosaic", "gpu", None),  # unknown value
+])
+def test_kmeans_impl_names_the_platform(impl, platform, expect):
+    from kmldpc_tpu.sim.chain import kmeans_impl_for
+
+    if expect is None:
+        with pytest.raises(ValueError):
+            kmeans_impl_for(impl, platform)
+    else:
+        assert kmeans_impl_for(impl, platform) == expect
+
+
+def test_chain_refuses_kernel_on_cpu(assets):
+    """Building a chain that asks for the kernel on the CPU raises at build
+    time (no quiet interpret mode); "auto" builds the plain estimator."""
+    from kmldpc_tpu.code import load_code
+    from kmldpc_tpu.sim.chain import ChainSpec, build_frontend_fn, target_platform
+
+    assert target_platform() == "cpu"
+    spec = ChainSpec(
+        code=load_code(str(assets / "PEG2304regular0.5.txt")),
+        constellation=parse_constellation(str(assets / "2bits_QPSK.txt")),
+        known_h=False, fading=True, metric_type=False, metric_iter=5,
+        max_iter=5, encoder_active=True, histogram=False, kmeans_impl="pallas",
+    )
+    with pytest.raises(ValueError, match="GPU kernel"):
+        build_frontend_fn(spec, 4)
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert target_platform() == "cpu"

@@ -1,10 +1,10 @@
 """Every committed parity artifact must pass its z-test, in CI.
 
-PARITY.md's nine sweeps are claims about files in benchmarks/parity/;
-this test re-runs the statistical comparison (tools/parity.py) on every
+PARITY.md's sweeps are claims about files in benchmarks/parity/; this
+test re-runs the statistical comparison (tools/parity.py) on every
 committed (reference log, ours JSON) pair so a stale or regressed
 artifact fails the suite instead of living on as prose.  Pure host-side
-arithmetic — no TPU, no simulation.
+arithmetic — no accelerator, no simulation.
 """
 
 import json
@@ -74,6 +74,12 @@ PAIRS = [
     # sweep 10: the PEG2304 fast stack (fminsum + matched metrics +
     # metric_prune) vs its dedicated blind-QPSK reference log
     ("ours_blind_qpsk_fminsum_prune.json", "ref_blind_qpsk.log", 1152),
+    # sweeps 0, 2, 3b and 5 run through the CLI on one NVIDIA H100
+    # (chip_smoke.py phase 6); these records carry no rate
+    ("ours_blind_qpsk_h100.json", "ref_blind_qpsk.log", 1152),
+    ("ours_blind_16qam_h100.json", "ref_blind_16qam.log", 1152),
+    ("ours_known_5g16qam_minsum_h100.json", "ref_known_5g16qam.log", 960),
+    ("ours_blind_8064_64qam_h100.json", "ref_blind_8064_64qam_r5.log", 4032),
 ]
 
 

@@ -654,15 +654,22 @@ def test_histogram_mode(assets, tmp_path, monkeypatch):
 def test_cli_smoke(assets, tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    rows_json = tmp_path / "rows.json"
     out = subprocess.run(
         [sys.executable, "-m", "kmldpc_tpu", str(assets / "config.toml"),
-         "--no-log-file", "--seed", "1"],
-        capture_output=True, text=True, env=env, cwd="/root/repo", timeout=600,
+         "--no-log-file", "--seed", "1", "--json", str(rows_json)],
+        capture_output=True, text=True, env=env, cwd=assets.parent, timeout=600,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BER Result" in out.stdout
     assert "FER Result" in out.stdout
     assert "Total time cost:" in out.stdout
+    # --json writes the per-SNR rows tools/parity.py reads
+    import json
+
+    rows = json.loads(rows_json.read_text())
+    assert rows and {"snr", "tot_blk", "err_blk", "err_bit", "tot_bit",
+                     "err_bit_sq"} <= set(rows[0])
 
 
 def test_chain_4psk_and_inactive_encoder(assets):

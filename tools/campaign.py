@@ -35,7 +35,10 @@ def expand(paths: list[str]) -> list[str]:
 def main() -> int:
     from kmldpc_tpu.config import load_config
     from kmldpc_tpu.sim import Simulator
+    from kmldpc_tpu.utils.compile_cache import enable_compile_cache
     from kmldpc_tpu.utils.logging import SimLogger
+
+    enable_compile_cache()
 
     out_dir = sys.argv[1]
     os.makedirs(out_dir, exist_ok=True)
@@ -49,12 +52,7 @@ def main() -> int:
         sim = Simulator(cfg, SimLogger(log_dir=None))
         results = sim.simulate()
         wall = time.monotonic() - t0
-        rows = [
-            dict(snr=r.snr, tot_blk=r.tot_blk, err_blk=r.err_blk,
-                 err_bit=r.err_bit, tot_bit=r.tot_bit, ber=r.ber, fer=r.fer,
-                 blocks_per_s=r.blocks_per_s, err_bit_sq=r.err_bit_sq)
-            for r in results
-        ]
+        rows = [r.as_row() for r in results]
         with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
             json.dump(rows, f, indent=1)
         summary.append(dict(config=name, wall_s=round(wall, 2),

@@ -1,4 +1,4 @@
-"""Statistical BER/FER parity check: TPU framework vs. the C++ reference.
+"""Statistical BER/FER parity check: this framework vs. the C++ reference.
 
 Usage:
     python tools/parity.py <reference.log> <ours.json>

@@ -1,19 +1,15 @@
 """Single source of truth for the chain benchmark row matrix.
 
-Both driver-visible bench surfaces — ``bench.py`` (the end-of-round driver
-run) and ``tools/microbench.py`` (the per-component harness behind every
-RESULTS.md claim) — import THIS table.  Rounds 1-2 each shipped a perf
-regression inside a config covered by one surface but not the other;
-round 3 contained the drift with a test pinning two separate tables, and
-this module removes the class entirely: one definition, one naming scheme
-(``CODE+MOD/mode[/variant]``), both harnesses and the test import it.
+Both bench surfaces — ``bench.py`` (the headline run) and
+``tools/microbench.py`` (the per-component harness) — import THIS table:
+one definition, one naming scheme (``CODE+MOD/mode[/variant]``), so a
+configuration cannot be covered by one surface and missed by the other.
 
-Row order is most-important-first (a timeout-truncated run on a slow-relay
-day still measures the rows that matter; results flush incrementally).
-``bench_rank`` orders the subset bench.py runs for the driver: rank 0 is
-the headline (blind PEG2304+QPSK — the reference's flagship mode,
-simulator.cc:111-169), rank 1 its known-h A/B, later ranks yield to the
-wall-clock budget.
+Row order is most-important-first (a run cut by its time limit still
+measures the rows that matter; results flush incrementally).
+``bench_rank`` orders the subset bench.py runs: rank 0 is the headline
+(blind PEG2304+QPSK — the reference's flagship mode, simulator.cc:111-169),
+rank 1 its known-h A/B, later ranks yield to the wall-clock budget.
 """
 
 from __future__ import annotations
@@ -107,57 +103,19 @@ def bench_rows() -> list[ChainRow]:
     return sorted(rows, key=lambda r: r.bench_rank)
 
 
-# --- session calibration (round 5) -----------------------------------------
-# The relay's throughput drifts ±20-24% BETWEEN windows while in-run spread
-# is ±1-7% (benchmarks/RESULTS.md), so a real regression can hide inside the
-# documented cross-window range.  Every bench session therefore times ONE
-# fixed calibration program FIRST — the PEG2304 known-h chain at a pinned
-# shape — and reports each row both raw and normalized by the session's
-# calibration factor (cal_blk_s / CAL_NOMINAL_BLK_S).  Two sessions' fleets
-# of `calibrated` values are comparable even across relay windows;
-# microbench --diff compares them when both sides carry them.
-CAL_ROW_NAME = "PEG2304+QPSK/known"
-CAL_BATCH = 1024
-CAL_CPL = 16
-CAL_SNR_DB = 15.0
-# Anchor: the round-4 driver-bench session (BENCH_r04 / bench_rows_latest).
-# Arbitrary but FIXED — changing it rescales every calibrated value, so
-# bump it only together with all committed baselines.
-CAL_NOMINAL_BLK_S = 312_804.0
-
-
-def calibration_row() -> ChainRow:
-    """The calibration program's row (pinned batch/cpl, never env-scaled)."""
-    base = next(r for r in CHAIN_ROWS if r.name == CAL_ROW_NAME)
-    return dataclasses.replace(base, batch=CAL_BATCH, cpl=CAL_CPL)
-
-
 def pick_n2(est_sec: float, n1: int = 4) -> int:
     """Size a slope measurement's long run from the per-call estimate so
-    the steady-state span dominates the fixed ~30 ms relay cost
-    (VERDICT r4 item 3: a fast row measuring ~24 ms of steady state
-    against ~30 ms of fixed cost spread 17.7%; a 1.9 ms/launch microbench
-    row hit a ±41% pass the same way).
+    the steady-state span dominates the fixed per-run cost (pipeline fill
+    and drain, the final sync) even for the fastest rows.
 
-    Targets a (n2 - n1) span >= 0.35 s (~12x the fixed cost), floor 12
-    calls, capped so one run stays under ~6 s.  Shared by bench.measure()
-    and microbench.steady().
+    Targets a (n2 - n1) span >= 0.35 s, floor 12 calls, capped so one run
+    stays under ~6 s.  Shared by bench.measure() and microbench.steady().
     """
     if est_sec <= 0:
         return 12
     n2 = n1 + max(8, int(0.35 / est_sec + 1))
     n2 = min(n2, max(12, int(6.0 / est_sec)))
     return max(12, min(n2, 240))
-
-
-def calibrated(value: float, metric: str, factor: float) -> float:
-    """Session-normalize ``value``: divide higher-better rates by the
-    session factor, multiply lower-better latencies by it (a slow window
-    has factor < 1: raw rates read low -> divide corrects up; raw
-    latencies read high -> multiply corrects down)."""
-    if factor <= 0:
-        return value
-    return value * factor if metric.startswith("us_") else value / factor
 
 
 def make_spec(row: ChainRow, assets_dir: str, dtype: str = "float32",

@@ -3,10 +3,9 @@
 Runs the blind Monte-Carlo chunk on 1..N devices (same global batch per
 device) and reports throughput + efficiency relative to linear scaling.
 
-On real multi-chip hardware this measures ICI/DCN scaling (BASELINE.md
-target: >=80% at >=2 hosts).  On a single-chip or virtual-CPU mesh the
-numbers only validate the mechanism (virtual devices share the same
-physical cores), which is what CI exercises.
+On several GPUs this measures the scaling of the data-parallel runner
+(BASELINE.md target: >=80%).  On a virtual-CPU mesh the numbers only
+validate the mechanism (virtual devices share the same physical cores).
 
 Usage:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -16,7 +15,7 @@ Usage:
 ``edge`` mode scales the OTHER axis: the edge-sharded decoder
 (parallel/edge_sharded.py) on the largest code (PEG8064), message state
 split over 1..N row shards at a fixed batch — the model-parallel analogue
-(SURVEY §2).  Decode-only timing; on hardware the psum rides ICI.
+(SURVEY §2).  Decode-only timing.
 """
 
 from __future__ import annotations
